@@ -1,11 +1,12 @@
-"""Multi-chip DSGD on a device mesh.
+"""Multi-device DSGD on a device mesh.
 
-On real hardware, run this unchanged on a TPU slice — `jax.devices()`
-supplies the chips and the same code shards over ICI. Without one, it
-demonstrates the identical program on 8 virtual CPU devices (the
-standard JAX substitute; SURVEY.md §4):
+On a machine with several GPUs, `jax.devices()` supplies the cards and
+the same code shards over them (NVLink joins every pair, so the 1-D
+mesh follows the algorithm alone). With --cpu it runs the identical
+program on 8 virtual CPU devices (the standard JAX substitute;
+SURVEY.md §4):
 
-    PYTHONPATH=/path/to/repo python examples/multichip_dsgd.py
+    PYTHONPATH=/path/to/repo python examples/multichip_dsgd.py [--cpu]
 
 For MULTI-HOST runs, each process additionally calls
 `matfac_tpu.parallel.distributed.init_distributed()` and loads only its
@@ -14,37 +15,36 @@ tests/dsgd_worker.py for a complete two-process example where no host
 ever holds the full rating stream.
 """
 
+import argparse
 import os
-
-if "XLA_FLAGS" not in os.environ:   # virtual 8-device CPU fallback
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import sys
 
 import numpy as np
 
 
-def main():
-    import contextlib
-
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="multi-device DSGD")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on 8 virtual CPU devices instead of GPUs")
+    args = ap.parse_args(argv)
+    if args.cpu and "xla_force_host_platform_device_count" not in \
+            os.environ.get("XLA_FLAGS", ""):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                                   " --xla_force_host_platform_device_count"
+                                   "=8").strip()
     import jax
-
-    try:
-        devices = jax.devices()
-    except RuntimeError:   # env names an unregistered platform plugin
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-        devices = jax.devices()
-    ctx = contextlib.nullcontext()
-    if len(devices) < 2:   # no slice available: 8-virtual-CPU fallback
-        try:
-            devices = jax.devices("cpu")
-        except RuntimeError:
-            # the active platform list excludes cpu (e.g. a plugin
-            # backend initialized with one device) — re-resolve
-            jax.config.update("jax_platforms", "cpu")
-            devices = jax.devices("cpu")
-        ctx = jax.default_device(devices[0])
+    devices = jax.devices()
+    if not args.cpu and devices[0].platform != "gpu":
+        sys.exit(f"no GPU found ({devices[0].platform}); pass --cpu to "
+                 "run on 8 virtual CPU devices")
+    if len(devices) < 2:
+        sys.exit(f"a mesh needs >= 2 devices, found {len(devices)}")
+    from matfac_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     print(f"devices: {devices}")
-    with ctx:
-        _run(jax, devices)
+    _run(jax, devices)
 
 
 def _run(jax, devices):
@@ -66,8 +66,8 @@ def _run(jax, devices):
     model = ModelMF(params, n_users, n_items)
 
     # 1-D mesh: factor tables row-shard over axis "u"; each epoch runs
-    # N rotated rounds and item blocks travel by lax.ppermute over ICI
-    # (parallel/dsgd.py — the TPU re-design of trainSGDPar,
+    # N rotated rounds and item blocks travel by lax.ppermute between
+    # devices (parallel/dsgd.py — the mesh re-design of trainSGDPar,
     # modelMF.cpp:154-350)
     mesh = Mesh(np.array(devices), ("u",))
     solver = DSGDShardedSolver(model, params, mat, iu, ii, mesh,

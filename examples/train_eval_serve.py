@@ -1,30 +1,31 @@
 """End-to-end tour: data -> train -> evaluate -> checkpoint -> serve.
 
-Runs on CPU or TPU in under a minute. Mirrors the reference's default
-workflow (`mf --algo mf --mf_method als ...`, main.cpp:1233-1421) using
-the library surface instead of the CLI.
+Runs on a GPU (or, with --cpu, on the CPU) in under a minute. Mirrors
+the reference's default workflow (`mf --algo mf --mf_method als ...`,
+main.cpp:1233-1421) using the library surface instead of the CLI.
 
-    PYTHONPATH=/path/to/repo python examples/train_eval_serve.py
+    PYTHONPATH=/path/to/repo python examples/train_eval_serve.py [--cpu]
 """
 
+import argparse
 import os
+import sys
 import tempfile
 
-import numpy as np
 
-
-def _ensure_backend():
-    """Fall back to CPU when the environment names a platform plugin
-    that is not importable (e.g. JAX_PLATFORMS left over in the env)."""
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="train -> eval -> serve")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of the GPU")
+    args = ap.parse_args(argv)
     import jax
-    try:
-        jax.devices()
-    except RuntimeError:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-
-
-def main():
-    _ensure_backend()
+    elif jax.devices()[0].platform != "gpu":
+        sys.exit(f"no GPU found ({jax.devices()[0].platform}); pass "
+                 "--cpu to run on the CPU")
+    from matfac_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     # --- 1. data ---------------------------------------------------
     # GKlib-text CSR files load through Params/Data exactly like the
     # reference (datastruct.cpp:3-120). Here we synthesize a low-rank
@@ -41,7 +42,7 @@ def main():
     train, test, val = split_train_test_val(full, test_pc=0.1,
                                             val_pc=0.1, seed=3)
 
-    workdir = tempfile.mkdtemp(prefix="matfac_tpu_example_")
+    workdir = tempfile.mkdtemp(prefix="matfac_example_")
     paths = {}
     for name, m in (("train", train), ("test", test), ("val", val)):
         paths[name] = os.path.join(workdir, f"{name}.csr")

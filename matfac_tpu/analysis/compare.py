@@ -49,7 +49,7 @@ def _block_ok_mask(train_mat: RatingMatrix, invalid_users: np.ndarray,
 def _block_preds(stacked: EvalView, orig: EvalView, uids: jax.Array
                  ) -> Tuple[jax.Array, jax.Array]:
     """([M, B, n_items] ensemble predictions, [B, n_items] ground
-    truth) for a user block — dense MXU scoring, the TPU analog of the
+    truth) for a user block — dense matmul scoring, the device analog of the
     per-cell estRating loops."""
     preds = (stacked.mu[:, None, None]
              + stacked.u_bias[:, uids][:, :, None]

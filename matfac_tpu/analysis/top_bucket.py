@@ -1,6 +1,6 @@
 """Per-user item-scoring comparisons and top-bucket RMSE curves.
 
-TPU-native analog of /root/reference/topBucketComp.cpp: several ways to
+JAX analog of /root/reference/topBucketComp.cpp: several ways to
 score a user's candidate items —
 
   * model:     predicted rating (itemPredScores, :468)

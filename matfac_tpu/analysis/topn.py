@@ -1,6 +1,6 @@
 """Long-tail top-N recommendation evaluation.
 
-TPU-native analog of /root/reference/longTail.cpp topNRec
+JAX analog of /root/reference/longTail.cpp topNRec
 (:279-502) and the topNRecTail* variants (:505-1382): sample up to 10k
 test users; for each of a user's test items sample 1000 unrated valid
 negatives; a "hit" = the test item ranks in the top-N of
@@ -104,7 +104,7 @@ def _topn_ranks(view: EvalView, train_mat: RatingMatrix,
 
     # one (user, test-item) pair per evaluation; all pools staged up
     # front and scored in block dispatches (round-1 ran one device
-    # round-trip per test item — VERDICT round-1 weak #5)
+    # round-trip per test item)
     from matfac_tpu.analysis.batch import sample_unrated_pools, score_pools
     pair_u, pair_ti, pair_row = [], [], []
     for j, u in enumerate(sampled_users):

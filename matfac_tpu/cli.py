@@ -24,7 +24,7 @@ from matfac_tpu.config import Params
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="matfac_tpu",
-        description="TPU-native matrix factorization (reference-parity CLI)")
+        description="JAX matrix factorization (reference-parity CLI)")
     # names mirror main.cpp:26-46 gflags
     ap.add_argument("--algo", default="mf",
                     help="mf | mf_bias | IFWMF | TMF | TMFDropout | "
@@ -42,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sgd|sgdpar|sgdparsvd|sgdu|hogsgd|blocksgd|"
                          "densesgd|als|"
                          "ialspp|alsdense|ccd|ccd++|ccd++freqadap|auto "
-                         "(auto = measured TPU-first choice, PERF.md). "
+                         "(auto = choice by input properties). "
                          "For --algo bpr*: train|hog|posneg|sigmoid|auto "
                          "(train/hog = stream + HR selection, posneg = "
                          "per-user pos/neg pairs + NDCG selection, "
@@ -69,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--initufac", default=None)
     ap.add_argument("--initifac", default=None)
     ap.add_argument("--prefix", default="mf")
-    # TPU-specific extras
+    # extras without a reference flag
     ap.add_argument("--batchsize", type=int, default=16384)
     ap.add_argument("--bprsampler", default="rankgap",
                     choices=["rankgap", "gap"],

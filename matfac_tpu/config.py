@@ -1,6 +1,6 @@
 """Hyperparameter configuration.
 
-TPU-native analog of the reference's ``Params`` bag
+JAX analog of the reference's ``Params`` bag
 (/root/reference/datastruct.h:12-69) plus the knobs a batched/jitted
 implementation needs (batch size, eval block sizes, dtype, mesh shape).
 """
@@ -16,7 +16,7 @@ class Params:
     """All run hyperparameters.
 
     Mirrors /root/reference/datastruct.h:12-69 field-for-field where the
-    field is algorithmic; file paths and TPU-execution knobs are extras.
+    field is algorithmic; file paths and device-execution knobs are extras.
     """
 
     # --- core dimensions (filled by Data if -1) ---
@@ -60,7 +60,7 @@ class Params:
     init_i_fac_file: Optional[str] = None
     prefix: str = "mf"
 
-    # --- TPU execution knobs (new; no reference analog) ---
+    # --- device execution knobs (new; no reference analog) ---
     batch_size: int = 16384        # SGD minibatch (COO examples per step)
     # scale colliding same-entity gradients within a batch to their
     # mean (stability on power-law data; solvers/sgd.py docstring)

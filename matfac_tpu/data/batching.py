@@ -1,6 +1,6 @@
 """Device batch construction.
 
-The TPU substitute for the reference's triplet/shuffle machinery
+The device-side substitute for the reference's triplet/shuffle machinery
 (getUIRatings util.cpp:636-722, parBlockShuffle util.cpp:1047-1064):
 ratings become fixed-shape COO shards (static shapes for XLA), per-row
 work becomes degree-bucketed padded layouts (bounded padding waste under

@@ -1,6 +1,6 @@
 """Host-side sparse rating-matrix container.
 
-TPU-native replacement for GKlib's ``gk_csr_t`` (used throughout the
+JAX-side replacement for GKlib's ``gk_csr_t`` (used throughout the
 reference, e.g. /root/reference/datastruct.cpp:16-98): a light numpy CSR
 with an on-demand column (CSC) view, frequency/stat helpers, and
 conversions to device-friendly COO / padded-row layouts.
@@ -149,7 +149,7 @@ class RatingMatrix:
                  pad_col: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Dense padded-row layout: (cols[n, cap], vals[n, cap], mask[n, cap]).
 
-        The TPU-friendly layout for per-row work (ALS gram accumulation,
+        The device-friendly layout for per-row work (ALS gram accumulation,
         rated-item exclusion in top-k eval). Padding uses ``pad_col`` with
         mask 0.
         """

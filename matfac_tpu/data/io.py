@@ -1,6 +1,6 @@
 """Matrix / vector / factor IO.
 
-TPU-native replacement for the reference's IO layer
+Replacement for the reference's IO layer
 (/root/reference/io.h:1-100, io.cpp): GKlib-text CSR read/write,
 factor-matrix text + binary IO, train/test/val splitting, binarization,
 triplet export. A native C++ fast-path parser (see ``native/``) is used

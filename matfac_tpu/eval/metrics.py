@@ -1,6 +1,6 @@
 """Pointwise evaluation: RMSE family, regularized objective, NDCG@10.
 
-TPU-native analog of the reference metric suite (model.cpp:214-251 RMSE
+JAX analog of the reference metric suite (model.cpp:214-251 RMSE
 with invalid filtering, model.cpp:1770-1815 objective, model.cpp:760-830
 NDCG). Everything is jitted over static-shape device arrays; the
 Evaluator wrapper owns the host→device staging of a Data bundle.

@@ -1,6 +1,6 @@
 """Model state + the base model families (MF, MF-bias).
 
-TPU-native analog of the reference ``Model`` hierarchy
+JAX analog of the reference ``Model`` hierarchy
 (/root/reference/model.h:22-264). The reference couples model and solver
 in one class; here a *model* is a pure description of
 
@@ -12,12 +12,12 @@ per-entity quantities (frequencies, effective ranks, popularity weights)
 are dense device tables so every model evaluates through one fused
 matmul path.
 
-Central trick (no reference analog — TPU design): the WWW'19 adaptive
+Central trick (no reference analog — accelerator design): the WWW'19 adaptive
 models truncate the dot product at a rank derived from the **less
 frequent** of (user, item) through a monotone map R(freq). Monotonicity
 gives R(min(fu, fi)) = min(R(fu), R(fi)), so the pair-rank truncation
 factorizes into independent per-entity factor masks — truncated
-full-catalog scoring stays a single dense [B,k]x[k,I] matmul on the MXU
+full-catalog scoring stays a single dense [B,k]x[k,I] matmul
 instead of a per-pair gather loop (reference does per-pair truncation in
 scalar loops: adapDotProd, util.cpp:1067-1074).
 """

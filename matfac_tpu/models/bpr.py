@@ -1,6 +1,6 @@
 """BPR ranking models: plain BPR and the BPR x TMF+Poisson hybrid.
 
-TPU-native analog of ModelMFBPR (/root/reference/modelMFBPR.cpp) and
+JAX analog of ModelMFBPR (/root/reference/modelMFBPR.cpp) and
 ModelBPRPoissonDropout (/root/reference/modelBPRPoissonDropout.cpp).
 Prediction is the plain factor dot; what differs from pointwise MF is
 the *pairwise* sigmoid update and HR-based model selection, which live

@@ -1,6 +1,6 @@
 """Incremental-rank MF.
 
-TPU-native analog of ModelIncrement (/root/reference/modelIncrement.cpp):
+JAX analog of ModelIncrement (/root/reference/modelIncrement.cpp):
 every user/item starts at rank 1; estRating truncates the dot product at
 min(rank_u, rank_i) (:10-18); every INC_ITER=5 epochs an entity whose
 probe RMSE (on ``data.graph_mat`` used as a probe set) improved grows

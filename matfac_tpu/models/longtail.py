@@ -1,6 +1,6 @@
 """Long-tail adaptive models (WWW'19): IFWMF, TMF, TMF+Dropout.
 
-TPU-native re-design of /root/reference/modelInvPopMF.cpp,
+JAX re-design of /root/reference/modelInvPopMF.cpp,
 modelDropoutSigmoid.cpp and modelPoissonDropout.cpp: per-entity
 popularity weights and sigmoid/Poisson effective ranks are precomputed
 dense device tables; truncation becomes factor masking (see
@@ -229,9 +229,9 @@ class ModelAdaptiveDropoutMF(ModelMF):
               0.5  for c <= k < minRank (minRank = min(rank_u, rank_i))
               0.15 for k >= minRank
 
-    TPU design: the pair-dependent soft weights factorize into a
+    Design: the pair-dependent soft weights factorize into a
     width-DOUBLED per-entity embedding, so scoring stays one dense
-    matmul on the MXU — with m_e = [k < rank_e] and g = [k >= c]:
+    matmul — with m_e = [k < rank_e] and g = [k >= c]:
 
         w_k = alpha_k + 0.35 * g_k * m_u,k * m_i,k
         (alpha_k = 1 for k < c else 0.15;

@@ -1,23 +1,23 @@
-"""Dense-cell SGD epoch: per-cell masked-residual GD on the MXU.
+"""Dense-cell SGD epoch: per-cell masked-residual GD as dense matmuls.
 
-The one-hot MXU engine (ops/block_sgd_kernel.py) pays 4k(bu+bi) FLOP
-per *rating* to move gathers/scatters onto the MXU, plus the one-hot
+The one-hot engine (ops/block_sgd_kernel.py) pays 4k(bu+bi) FLOP
+per *rating* to turn gathers/scatters into matmuls, plus the one-hot
 materialization traffic that is ~85% of its epoch at the bench shapes
 (PERF.md "Diagonal schedule"). But at cell-sized batches — which the
 auto batch sizing already picks at the bench shapes (n_steps=1) — the
 minibatch one-hot update is EXACTLY a dense masked-residual GD step on
 the cell:
 
-    P  = U I^T                    [bu, bi]   (MXU)
+    P  = U I^T                    [bu, bi]   (matmul)
     E  = W  *  (R - P)            elementwise; E[u,i] = coeff_{u,i}
-    gu = -2 E I  + 2*u_reg*cnt_u[:,None]*U    (MXU + VPU)
+    gu = -2 E I  + 2*u_reg*cnt_u[:,None]*U    (matmul + elementwise)
     gi = -2 E^T U + 2*i_reg*cnt_i[:,None]*I
     U -= lr * gu / max(cnt_u,1)   (collision normalization = the
     I -= lr * gi / max(cnt_i,1)    within-batch same-entity mean)
 
 where R/W are the cell's ratings/weights as STATIC dense [bu, bi]
 tiles and cnt = per-row/col valid counts (W > 0). Per dense slot this
-is 6k MXU FLOP and ~3-6 B of HBM — versus the one-hot engine's
+is 6k matmul FLOP and ~3-6 B of HBM — versus the one-hot engine's
 4k(bu+bi) FLOP and ~(bu+bi)*8 B per *stream slot*; dense wins FLOP
 whenever cells hold more than ~0.75*b ratings, and always wins
 traffic. The trade is HBM residency: the dense tiles materialize the
@@ -185,12 +185,8 @@ def dense_sweep_rows(u_tab3: jax.Array, i_tab: jax.Array,
     NI = 1) in one masked-residual GD step. Identical math to
     dense_sweep_diag at G = 1; split out because the per-round stripe
     moves by SCALAR indexing (u3[ub], R_rows[ub] — lowered to
-    dynamic-slice) instead of a vector gather: the probe measured the
-    advanced-indexing cell gather at 546 ms/epoch vs 34 ms for slicing
-    at the full bench shape (scripts/tpu_dense_probe.py), which is the
-    whole difference between this engine losing and winning. Full-width
-    matmuls ([bu, k] @ [k, ni_pad]) also run the MXU at its best shape
-    (the probe's rowmm = 34 ms for the entire epoch's compute).
+    dynamic-slice) instead of a vector gather of scattered cells, and
+    its matmuls run at full catalog width ([bu, k] @ [k, ni_pad]).
 
     u_tab3 [NU+1, bu, k] (row NU = unused dummy, matching the diag
     staging), i_tab [ni_pad, k]; R_rows/W_rows [NU+1, bu, ni_pad];
@@ -288,15 +284,14 @@ def densify_rows_host(cell: "np.ndarray", u_loc: "np.ndarray",
     """Scatter a COO stream into the dense [cells, bu, bi] grid via
     CHUNKED flat 1-D scatters (host driver, device compute).
 
-    Why not one 3-index scatter (.at[cell, ul, il].add): XLA
-    lays the scatter's [nnz, 3] s32 index matrix out in (8, 128)
-    tiles — a 42.7x padding expansion that cost 2 x 9.4 GiB of HLO
-    temps at the ML-20M shape and OOMed the compile (measured,
-    round 5). A flat 1-D index stream has no such padding; chunking
-    row ranges keeps every flat index inside int32 and bounds the
+    Why not one 3-index scatter (.at[cell, ul, il].add): its
+    [nnz, 3] s32 index matrix is a device-memory temp of its own, and
+    some backends pad it to a tiled layout many times its size. A flat
+    1-D index stream is the smallest index operand; chunking row
+    ranges keeps every flat index inside int32 and bounds the
     per-chunk temp to ``chunk_elems`` slots. The output buffer is
-    donated through each row-range update, so peak HBM = grid +
-    one chunk."""
+    donated through each row-range update, so peak device memory =
+    grid + one chunk."""
     import numpy as np
 
     rows = cell.astype(np.int64) * bu + u_loc.astype(np.int64)

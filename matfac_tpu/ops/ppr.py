@@ -1,6 +1,6 @@
 """PageRank / personalized PageRank via sparse power iteration.
 
-TPU-native replacement for GKlib's ``gk_rw_PageRank`` (used throughout
+JAX replacement for GKlib's ``gk_rw_PageRank`` (used throughout
 the reference analysis layer: confCompute.cpp:18, topBucketComp.cpp:377,
 othersrc/computePPR.cpp:24): random walk with restart on the item-item
 graph,

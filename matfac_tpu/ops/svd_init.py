@@ -1,11 +1,11 @@
 """Truncated SVD factor initialization.
 
-TPU-native replacement for the SVDLIBC Lanczos wrapper
+JAX replacement for the SVDLIBC Lanczos wrapper
 (svdFrmSvdlibCSREig, /root/reference/svdFrmsvdlib.cpp:69-134, and the
 binary-sparsity variant svdFrmSvdlibCSRSparsityEig, :202-262):
 randomized subspace-iteration SVD where every heavy op is a dense
 matmul against the sparse matrix expressed as COO segment-sums — runs
-jitted on the TPU, no host linear-algebra library.
+jitted on the device, no host linear-algebra library.
 
 API parity: returns (u_fac, i_fac, singular_vals); ``pure_svd=True``
 scales iFac columns by the singular values (the reference's "pureSVD"

@@ -1,9 +1,9 @@
-"""Block-DSGD: the one-hot MXU engine nested inside mesh-sharded DSGD.
+"""Block-DSGD: the one-hot block engine nested inside mesh-sharded DSGD.
 
 parallel/dsgd.py shards factor tables over a 1-D mesh and rotates item
 blocks by `lax.ppermute` (Gemulla DSGD; modelMF.cpp:154-350), but its
-per-shard inner update is the scatter engine — per-index-bound at
-~38M ratings/s/shard (PERF.md). This solver keeps the identical outer
+per-shard inner update is the scatter engine, bound by its per-index
+cost. This solver keeps the identical outer
 structure (same rounds, same rotation, same disjointness) and replaces
 each shard-round's inner sweep with the single-chip block engine's
 DIAG schedule (ops/block_sgd_kernel.block_sweep_diag): the
@@ -422,8 +422,7 @@ class DenseBlockDSGDSolver:
     (ops/dense_block_kernel.cell_dense_update): each (user stripe x
     held item block) cell runs ONE masked-residual GD step on static
     dense rating/validity tiles — 3 full-width matmuls, no one-hots,
-    no per-rating index streams (PERF.md "Row-dense SGD engine",
-    404.8M ratings/s single-chip). Update math identical to
+    no per-rating index streams. Update math identical to
     BlockSGDSolver(engine="dense") at batch = stripe-cell (README
     deviation #1).
 

@@ -4,8 +4,9 @@ The reference has no distributed backend (OpenMP only — SURVEY.md §2);
 this is the from-scratch multi-host story: `jax.distributed` process
 bootstrap + host-local data loading helpers so each host stages only
 its own shard of the rating stream (ratings partitioned by user block,
-matching the row-sharded factor tables of parallel/dsgd — DCN carries
-only the initial distribution, ICI carries the training collectives).
+matching the row-sharded factor tables of parallel/dsgd — the host
+network carries only the initial distribution, the device links carry
+the training collectives).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Sharded DSGD: block-stratified SGD over a device mesh.
 
-The TPU-native re-design of the reference's shared-memory DSGD
+The mesh re-design of the reference's shared-memory DSGD
 (ModelMF::trainSGDPar, modelMF.cpp:154-350 + the Latin-square block
 schedule sgdUpdateBlockSeq, util.cpp:1077-1107), mapped to hardware the
 way SURVEY.md §2/§7 prescribes:
@@ -13,7 +13,7 @@ way SURVEY.md §2/§7 prescribes:
     block each round (the diagonal rotation = the reference's random
     Latin square, with identical coverage).
   * Between rounds each shard passes its item block to its left
-    neighbor with `jax.lax.ppermute` over ICI — the only communication
+    neighbor with `jax.lax.ppermute` — the only communication
     in the epoch. No gradient all-reduce, no parameter server: updates
     are always local to the shard that currently owns the rows.
 
@@ -119,7 +119,7 @@ class DSGDShardedSolver:
         ib = c // self.bi            # item block
         rnd = (ib - ub) % N          # round in which this entry is live
 
-        # ---- multi-host staging (SURVEY §7 step 5; VERDICT r1 #4) ----
+        # ---- multi-host staging (SURVEY §7 step 5) ----
         # Each process builds ONLY the (user-block, round) cells whose
         # shard lives on one of its addressable devices, so no host ever
         # holds the full staged stream. In a multi-process run the
@@ -172,8 +172,8 @@ class DSGDShardedSolver:
         # static shuffle within every cell: the stream is user-sorted and
         # an unshuffled minibatch holds whole user rows -> scatter-add
         # collisions blow up the effective step. Per-epoch randomness is
-        # then a cheap random rotation (full device sorts compile
-        # pathologically slowly on TPU). The rng is seeded PER CELL so
+        # then a cheap random rotation (no full device sort per
+        # epoch). The rng is seeded PER CELL so
         # any process staging any subset builds identical cells.
         for j, b in enumerate(self.local_blocks):
             for t_s in range(N):
@@ -272,7 +272,7 @@ class DSGDShardedSolver:
                 if mode != "permuteonly":
                     u_fac, i_fac_blk, key = jax.lax.fori_loop(
                         0, n_steps, batch_body, (u_fac, i_fac_blk, key))
-                # pass the item block to the left neighbor over ICI:
+                # pass the item block to the left neighbor:
                 # shard i held block (i+t); next round it needs (i+t+1),
                 # currently held by shard i+1
                 if mode != "nopermute":

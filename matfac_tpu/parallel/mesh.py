@@ -2,7 +2,7 @@
 
 The reference's only parallelism is single-node OpenMP shared memory
 (SURVEY.md §2 "Parallelism status"); there is nothing to port. This
-module is the from-scratch TPU scaling layer: a 1-2D
+module is the from-scratch multi-device scaling layer: a 1-2D
 ``jax.sharding.Mesh`` whose axes shard the *embedding-table heights*
 (n_users / n_items) — the scale axes of this workload (SURVEY.md §5
 "long-context" note). PP/TP-for-matmuls/SP/EP do not apply to MF; the
@@ -17,7 +17,7 @@ distributed decomposition is
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import jax
 import numpy as np
@@ -40,30 +40,27 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     return Mesh(dev_array, tuple(axes[: len(shape)]))
 
 
-def factor_sharding(mesh: Mesh, u_axis: str = "u", i_axis: str = "i"
-                    ) -> Tuple[NamedSharding, NamedSharding]:
-    """Row-sharding specs for (uFac, iFac)."""
-    u_spec = P(u_axis if u_axis in mesh.axis_names else None, None)
-    i_spec = P(i_axis if i_axis in mesh.axis_names else None, None)
-    return NamedSharding(mesh, u_spec), NamedSharding(mesh, i_spec)
-
-
 def shard_state(state: MFState, mesh: Mesh, u_axis: str = "u",
                 i_axis: str = "i") -> MFState:
     """Place a model state onto the mesh: factors row-sharded, biases
-    sharded along the same axes, mu replicated."""
-    u_sh, i_sh = factor_sharding(mesh, u_axis, i_axis)
-    ub_sh = NamedSharding(mesh, P(u_axis if u_axis in mesh.axis_names
-                                  else None))
-    ib_sh = NamedSharding(mesh, P(i_axis if i_axis in mesh.axis_names
-                                  else None))
-    rep = NamedSharding(mesh, P())
+    sharded along the same axes, mu replicated. A table whose height
+    does not divide its axis is replicated instead (a jax.Array shards
+    only evenly; e.g. ML-20M's 138,493 users over 4 devices)."""
+    def axis_for(name: str, n: int):
+        if name in mesh.axis_names and n % mesh.shape[name] == 0:
+            return name
+        return None
+
+    ua = axis_for(u_axis, state.u_fac.shape[0])
+    ia = axis_for(i_axis, state.i_fac.shape[0])
+    put = lambda x, *spec: jax.device_put(  # noqa: E731
+        x, NamedSharding(mesh, P(*spec)))
     return MFState(
-        u_fac=jax.device_put(state.u_fac, u_sh),
-        i_fac=jax.device_put(state.i_fac, i_sh),
-        u_bias=jax.device_put(state.u_bias, ub_sh),
-        i_bias=jax.device_put(state.i_bias, ib_sh),
-        mu=jax.device_put(state.mu, rep),
+        u_fac=put(state.u_fac, ua, None),
+        i_fac=put(state.i_fac, ia, None),
+        u_bias=put(state.u_bias, ua),
+        i_bias=put(state.i_bias, ia),
+        mu=put(state.mu),
     )
 
 

@@ -1,6 +1,6 @@
-"""ALS — batched normal-equation solves on the MXU.
+"""ALS — batched normal-equation solves.
 
-TPU-native analog of ModelMF::trainALS (modelMF.cpp:709-928): per user
+JAX analog of ModelMF::trainALS (modelMF.cpp:709-928): per user
 u, accumulate the Gram YTY = sum_i q_i q_i^T and b = sum_i r_ui q_i over
 the rated items with rating > 0 (the reference's explicit rating>0 gate,
 modelMF.cpp:820/:862), add reg to the diagonal, solve the k x k system;
@@ -9,8 +9,8 @@ then symmetrically for items over the column view.
 The reference loops scalar Gram accumulation per row under OpenMP; here
 rows are grouped into power-of-two degree buckets (data.batching) and
 each bucket runs one einsum Gram + one batched Cholesky solve — dense
-[nb, cap, k] x [nb, cap, k] -> [nb, k, k] contractions that tile onto
-the MXU, O(log max_deg) compiled shapes total.
+[nb, cap, k] x [nb, cap, k] -> [nb, k, k] contractions, O(log max_deg)
+compiled shapes total.
 """
 
 from __future__ import annotations
@@ -29,10 +29,9 @@ from matfac_tpu.models.base import MFState
 
 def solve_spd_cg(gram, b, x0, iters: int, eps: float = 1e-12):
     """Warm-started batched conjugate gradient for SPD systems —
-    gram [n,k,k], b/x0 [n,k]. Batched cholesky on TPU costs ~8us/matrix
-    (measured: 833ms for 102k solves of 64x64, dominating every ALS
-    epoch); CG is nothing but batched matvecs on the MXU, and with the
-    previous factors as x0 a handful of iterations reaches ALS-quality
+    gram [n,k,k], b/x0 [n,k]. CG is nothing but batched matvecs, and
+    batched Cholesky can be the costliest part of an ALS epoch; with
+    the previous factors as x0 a handful of iterations reaches ALS-quality
     solves (the iALS warm-start trick, Hu et al. / iALS++)."""
     def mv(x):
         return jnp.einsum("bij,bj->bi", gram, x,
@@ -266,7 +265,7 @@ def _dense_als_sweep(target_fac, source_fac, dense_vals, reg: float,
 
     with QQ[i, (k,l)] = q_ik q_il. Identical normal equations to
     _solve_bucket (modelMF.cpp:806-880 semantics incl. the rating>0
-    gate) but zero gathers — pure MXU work. Requires the dense ratings
+    gate) but zero gathers — pure matmul work. Requires the dense ratings
     block-row Wv [n_rows, n_src] in HBM (bf16 is fine for ratings).
 
     ``packed``: exploit Gram symmetry — QQ carries only the k(k+1)/2
@@ -274,21 +273,18 @@ def _dense_als_sweep(target_fac, source_fac, dense_vals, reg: float,
     a static take along the packed axis. Column (a,b) of the full QQ
     equals column (b,a) exactly, so the packed sweep computes the SAME
     f32 contractions (bit-identical columns) at ~half the Gram-matmul
-    FLOP — the dominant cost of the sweep (measured 1.9x epoch cut at
-    the full bench shape, scripts/tpu_dense_als.py).
+    FLOP — the dominant cost of the sweep.
 
-    ``gram_int8``: run the Gram matmul on the int8 MXU path (measured
-    278 TOPS vs 161 bf16-TFLOP/s at this shape, scripts/tpu_int8_gram.py).
+    ``gram_int8``: run the Gram matmul as int8 x int8 -> int32 (twice
+    the bf16 tensor-core rate on the spec sheet; not yet measured here).
     The mask operand is 0/1 so int8 x int8 -> int32 accumulation is
     EXACT in it; only QQ quantizes (symmetric per-column scales,
     <= 2^-8 relative — the same error class as the bf16 mode). The
     b-vector and solves stay bf16/f32. ``mask8``: PRESTAGED int8 mask
     in the sweep's OWN orientation ([n_rows_pad, n_src] row-sliced in
-    both modes — the item sweep gets the transposed copy) — measured
-    requirement for the int8 MXU rate: the in-sweep (wv > 0) cast ran
-    the int8 Gram at bf16 speed, and the transposed einsum never hit
-    the int8 path at all (scripts/tpu_als_decomp.py: in-sweep 71-73 ms
-    vs prestaged transposed dot 46.9 ms per sweep). Requires
+    both modes — the item sweep gets the transposed copy), so the
+    int8 operand reaches the dot as stored, with no in-sweep cast or
+    transpose in front of it. Requires
     cg_iters > 0: the quantization error is absolute per column, so a
     LOW-count row's small Gram can go indefinite past the ridge retry
     and Cholesky NaNs (observed); warm bounded CG degrades gracefully
@@ -306,7 +302,7 @@ def _dense_als_sweep(target_fac, source_fac, dense_vals, reg: float,
                          "(see docstring)")
     n_rows = target_fac.shape[0]
     k = target_fac.shape[1]
-    # big matmuls run with bf16 operands + f32 accumulation (MXU rate);
+    # big matmuls run with bf16 operands + f32 accumulation;
     # the k x k solves stay f32
     mm_dtype = dense_vals.dtype if dense_vals.dtype == jnp.bfloat16 \
         else jnp.float32
@@ -400,17 +396,17 @@ def _dense_als_sweep(target_fac, source_fac, dense_vals, reg: float,
 class DenseALSSolver:
     """ALS via dense masked Grams — the gather-free formulation.
 
-    Index-gather throughput on TPU (~35M rows/s measured) caps the
-    bucketed ALS at ~9M ratings/s/chip; this variant trades nnz-sized
-    gathers for dense [rows x cols] matmuls on the MXU, which wins
-    whenever density > ~0.1% (PERF.md). Memory: needs the dense rating
-    matrix (bf16) + its transpose in HBM — guarded below.
+    The bucketed ALS gathers one factor row per rating; this variant
+    trades those nnz-sized gathers for dense [rows x cols] matmuls,
+    which pays when the matrix is dense enough. Memory: needs the
+    dense rating matrix (bf16) in HBM — guarded below.
     """
 
-    # v5e HBM = 16 GiB; the sweeps' live temps are per-block (~hundreds
-    # of MB), so dense staging (values + optional int8 masks) can take
-    # most of it. 10 GiB covers the full bench shape with gram_int8
-    # (bf16 values 4.2 GB + two int8 masks 4.2 GB).
+    # the sweeps' live temps are per-block (~hundreds of MB), so this
+    # caps the dense staging (values + optional int8 masks). 10 GiB
+    # covers the full bench shape with gram_int8 (bf16 values 4.2 GB +
+    # two int8 masks 4.2 GB); an inherited size, not yet derived from
+    # device memory (ROADMAP speed item 10).
     MAX_DENSE_BYTES = 10 * 1024 ** 3
 
     def __init__(self, model, params: Params, train_mat,
@@ -473,9 +469,9 @@ class DenseALSSolver:
         self.dense = jnp.asarray(dense, dense_dtype)
         del dense
         if gram_int8:
-            # prestaged int8 masks in EACH sweep's row orientation —
-            # the int8 MXU rate needs both (solvers docstring / decomp
-            # probe); +2 bytes/slot accounted in the guard above
+            # prestaged int8 masks in EACH sweep's row orientation
+            # (_dense_als_sweep docstring); +2 bytes/slot accounted in
+            # the guard above
             self.mask_rows = jax.jit(
                 lambda d: (d > 0).astype(jnp.int8))(self.dense)
             self.mask_cols = jax.jit(

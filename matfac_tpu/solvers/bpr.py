@@ -1,6 +1,6 @@
 """BPR pairwise-ranking SGD with device-side gap negative sampling.
 
-TPU-native analog of ModelMFBPR::train / trainHog
+JAX analog of ModelMFBPR::train / trainHog
 (modelMFBPR.cpp:245-722). Positives are train entries with rating > 0
 (getBPRUIRatings, modelMFBPR.cpp:46-58). Negative sampling replicates
 the reference's CSR gap trick (sampleNegItem, modelMFBPR.cpp:191-242)
@@ -27,9 +27,8 @@ applied batched with scatter-add; the BPRxPoisson hybrid masks dims via
 model.triple_rank_mask. LR decays x0.9 per epoch in the caller
 (modelMFBPR.cpp:533).
 
-Stream-mode throughput design (PERF.md "BPR pairwise"): the epoch is
-bound by the per-INDEX issue rate of gathers/scatters (~68 ms per
-9.9M-index stream on v5e), so the engine minimizes index streams/pair:
+Stream-mode throughput design: the epoch is bound by the per-INDEX
+cost of gathers/scatters, so the engine minimizes index streams/pair:
 
   * (start, deg) of each positive's user row are HOST-STAGED next to
     the positive stream (batch contents are static — only batch order
@@ -125,7 +124,7 @@ class BPRSolver:
         keep = (v > 0) & ~invalid_users[r] & ~invalid_items[c]
         pr, pc = r[keep], c[keep]
         # static host shuffle; per-epoch randomness = offset + batch
-        # order (see solvers/sgd.py note on TPU sort-compile cost)
+        # order (see solvers/sgd.py note on device-sort cost)
         sperm = np.random.default_rng(params.seed).permutation(len(pr))
         pr, pc = pr[sperm], pc[sperm]
         n = len(pr)
@@ -153,8 +152,8 @@ class BPRSolver:
         # sampling; rows sorted by construction (RatingMatrix.from_coo).
         # The per-try lookup (col, val, next_col) is PACKED into one
         # row so each try costs one row-gather instead of three —
-        # per-index cost dominates TPU gathers (PERF.md), so width-3
-        # rows are ~free.
+        # per-index cost dominates narrow gathers, so width-3 rows are
+        # ~free.
         self.csr_indptr = jnp.asarray(train_mat.indptr.astype(np.int32))
         self.csr_cols = jnp.asarray(train_mat.indices.astype(np.int32))
         self.csr_vals = jnp.asarray(train_mat.values.astype(np.float32))
@@ -349,7 +348,7 @@ class BPRSolver:
             k_ord, k_bits, key = jax.random.split(key, 3)
             border = jax.random.permutation(k_ord, n_batches)
             # ALL sampler randomness in one dispatch (in-scan threefry
-            # splits/randints measured ~160 ms/epoch at 9.9M pairs)
+            # splits/randints cost a pass per batch)
             bits = jax.random.bits(
                 k_bits, (n_batches, 2, n_tries, B), jnp.uint32)
 

@@ -1,14 +1,14 @@
 """Dense-stripe BPR: pairwise ranking on full-catalog score panels.
 
-The stream BPR engine (solvers/bpr.py) is bound by the per-INDEX issue
-rate: 9 index streams per pair (3 row gathers + 3 row scatters + 3
-sampler streams) ~= 7 ns each on v5e (PERF.md "BPR pairwise"). This
+The stream BPR engine (solvers/bpr.py) is bound by the per-INDEX cost
+of 9 index streams per pair (3 row gathers + 3 row scatters + 3
+sampler streams). This
 engine restructures the epoch the way the row-dense SGD engine did
 (ops/dense_block_kernel.dense_sweep_rows): per user STRIPE, one dense
 score panel serves every positive of the stripe, and the per-pair work
 drops to 4 SCALAR streams + shared matmuls:
 
-  P2 = U @ I^T - BIG * W          [bu, ni]  (one MXU matmul; W = the
+  P2 = U @ I^T - BIG * W          [bu, ni]  (one matmul; W = the
                                    stripe's 0/1 rated/invalid mask)
   s+ = P2[ul, ip] + BIG           (1 element-gather; ip rated => the
                                    -BIG cancels to f32 rounding: the
@@ -22,7 +22,7 @@ drops to 4 SCALAR streams + shared matmuls:
                                    the score, no mask lookup)
   c  = w * (-1 / (1 + exp(s+ - s-)))
   C  = scatter +c at (ul, ip), -c at (ul, j)    (2 element-scatters)
-  gU = C @ I + reg;  gI = C^T @ U + reg         (2 MXU matmuls)
+  gU = C @ I + reg;  gI = C^T @ U + reg         (2 matmuls)
 
 Update semantics = modelMFBPR.cpp:501-521 per-triple gradients
 (solvers/bpr.bpr_pair_terms), minibatched at batch = stripe with
@@ -246,7 +246,7 @@ class DenseBPRSolver:
                 # loss/inversions are per-DRAW means (the 1/T scale
                 # matching the averaged gradient), so cross-engine loss
                 # comparisons and loss-based termination stay on the
-                # stream engine's scale at any T (ADVICE r4)
+                # stream engine's scale at any T
                 loss = loss + jnp.sum(
                     w[None, :] * jnp.logaddexp(0.0, -r)) / T
                 inv = inv + jnp.sum(

@@ -1,4 +1,4 @@
-"""Minibatched scatter-add SGD — the TPU-native SGD family.
+"""Minibatched scatter-add SGD — the device SGD family.
 
 Replaces the reference's sequential SGD (ModelMF::train,
 modelMF.cpp:4-151), DSGD block-parallel SGD (trainSGDPar,
@@ -85,7 +85,7 @@ class SGDSolver:
         # One static host-side shuffle; per-epoch randomness is a random
         # cyclic offset + random batch order (tiny sort) instead of a
         # full device permutation — a 10M-element sort is pathologically
-        # slow to compile on TPU and adds nothing statistically for SGD
+        # slow to compile and adds nothing statistically for SGD
         # (the reference itself full-shuffles only every 10th epoch,
         # modelMF.cpp:76-81).
         sperm = np.random.default_rng(params.seed).permutation(b.n_total)
@@ -158,8 +158,7 @@ class SGDSolver:
                 # contiguous slices of the statically-shuffled stream;
                 # per-epoch randomness = random batch ORDER. (An
                 # element-level rotation costs 4 scalar-gather passes
-                # over the stream — measured ~1 s/epoch at 10M nnz,
-                # dominating the entire update.)
+                # over the stream, more than the whole update.)
                 start = b_idx * B
                 sl = functools.partial(jax.lax.dynamic_slice_in_dim,
                                        start_index=start, slice_size=B)

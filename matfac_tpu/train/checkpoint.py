@@ -160,7 +160,7 @@ def load_state(path: str) -> Tuple[MFState, dict]:
 
 # ----------------------------------------------------------------------
 # sharded checkpoints (orbax) — multi-host-safe save/restore of factor
-# tables placed on a mesh (SURVEY.md §5 "checkpoint/resume": the TPU
+# tables placed on a mesh (SURVEY.md §5 "checkpoint/resume": this
 # build stores sharded tables + loop progress; the reference's text
 # factors remain the interchange format)
 # ----------------------------------------------------------------------

@@ -53,6 +53,11 @@ class TrainReport:
     best_iter: int
     stop_reason: str
     history: List[EpochLog]
+    # set by train_model: the solver that actually ran (after any
+    # budget fallback) and the seconds its construction took (host
+    # staging + device upload)
+    method: str = ""
+    staging_seconds: float = 0.0
 
 
 class TrainLoop:
@@ -377,16 +382,16 @@ _SOLVERS = ("auto", "sgd", "sgdpar", "sgdparsvd", "sgdu", "hogsgd",
 
 
 def _auto_method(algo: str, data, params, mesh) -> str:
-    """TPU-first solver choice from the PERF.md measurements (no
-    reference analog — the reference makes the user pick):
+    """Solver choice by input properties (no reference analog — the
+    reference makes the user pick):
 
-    * plain MF on one chip -> 'als' (warm-CG): the coordinate family
-      reaches the quality basin in ~10 epochs vs SGD's hundreds, so it
-      wins on wall-clock-to-quality despite block-SGD's higher
-      ratings/s (195 ms vs 72 ms per epoch, but 12 vs 300 epochs).
+    * plain MF on one device -> 'als': the coordinate family reaches
+      the quality basin in ~10 epochs vs SGD's hundreds, so it wins on
+      wall-clock-to-quality even where an SGD epoch is cheaper.
     * long-tail models (IFWMF/TMF/TMFDropout) train by SGD in the
-      reference; pick the one-hot MXU block engine when the staged
-      cell stream fits HBM (~1.5x-padded 7-array stream), else the
+      reference; pick the row-dense engine when its padded grid fits
+      the byte budget below, else the one-hot block engine when the
+      staged cell stream fits (~1.5x-padded 7-array stream), else the
       scatter engine.
     * under a multi-device mesh the same quality-basin argument holds:
       plain MF -> sharded bucketed ALS (SPMD auto-partitioning over the
@@ -409,9 +414,10 @@ def _auto_method(algo: str, data, params, mesh) -> str:
         # distributions no block engine stages
         return "sgd"
     # deterministic SGD-family models (TMF/IFWMF/weighted): prefer the
-    # row-dense engine when the padded dense grid fits its HBM budget
-    # (~2x the one-hot engine's rate, PERF.md "Long-tail models");
-    # else the one-hot stream when THAT fits; else scatter SGD
+    # row-dense engine when the padded dense grid fits its byte
+    # budget; else the one-hot stream when THAT fits; else scatter
+    # SGD. The 2560/128 padding quantum and the 6e9/8e9 byte cuts are
+    # inherited sizes, not yet re-derived from GPU cells (ROADMAP).
     nu_pad = -(-data.n_users // 2560) * 2560
     ni_pad = -(-data.n_items // 128) * 128
     # bytes/slot: 1 when the solver will stage int8 rating codes
@@ -581,20 +587,18 @@ def train_model(data, params: Params, algo: str = "mf",
     m = mf_method.lower()
     if m == "auto":
         m = _auto_method(a, data, params, mesh)
-        log_fn(f"mf_method=auto resolved to '{m}' "
-               "(measured guidance, PERF.md)")
+        log_fn(f"mf_method=auto resolved to '{m}'")
         if m == "densesgd":
             # the dense row engine's effective minibatch is a full user
             # stripe (README deviation #1) — surface the dynamics
             # change the auto default implies at a fixed learn_rate
-            # (ADVICE r4)
             log_fn("note: densesgd trains at batch = user stripe; at a "
                    "fixed learn_rate this differs from the blocksgd "
                    "default's ~1-8k minibatches (pass mf_method="
                    "'blocksgd' to keep the previous default)")
     if mesh is not None and model.use_bias:
         # DSGD/BlockDSGD update factors only; routing a bias model
-        # there would silently freeze mu/uBias/iBias (ADVICE r2)
+        # there would silently freeze mu/uBias/iBias
         raise ValueError(
             "mesh training does not support bias models (the DSGD "
             "engines update factors only) — train mf_bias on a single "
@@ -648,6 +652,7 @@ def train_model(data, params: Params, algo: str = "mf",
             f"reg_exponent is implemented for 'als' and the sgd "
             f"engine, not '{m}' — drop the exponent or switch method")
     sing_vals = None
+    t_stage = time.perf_counter()
     if mesh is not None and m == "densesgd":
         # multi-device row-dense engine: DSGD rotation outside, dense
         # stripe sweeps inside each shard-round (the round-4 headline
@@ -673,6 +678,7 @@ def train_model(data, params: Params, algo: str = "mf",
             from matfac_tpu.parallel.dsgd import DSGDShardedSolver
             solver = DSGDShardedSolver(model, params, data.train_mat,
                                        inval_u, inval_i, mesh)
+            m = "sgd"
             log_fn("mesh blocksgd: fell back to the scatter DSGD "
                    "(Poisson-sampled ranks)")
         else:
@@ -697,11 +703,10 @@ def train_model(data, params: Params, algo: str = "mf",
         solver = SGDSolver(model, params, data.train_mat, inval_u,
                            inval_i, reg_scale_u=rs_u, reg_scale_i=rs_i)
     elif m == "blocksgd":
-        # one-hot MXU cell engine (ops/block_sgd_kernel.py) — same
-        # update semantics as sgd, restructured for the TPU roofline.
-        # Measured-best config (PERF.md "Diagonal schedule + pad_k"):
-        # DSGD-round diag schedule, 384-blocks, k zero-padded to the
-        # MXU's 128 result lanes (exact equivalence).
+        # one-hot cell engine (ops/block_sgd_kernel.py) — same update
+        # semantics as sgd with gathers/scatters as one-hot matmuls:
+        # DSGD-round diag schedule, 384-blocks, k zero-padded to 128
+        # (exact equivalence; solvers/block_sgd.py pad_k).
         from matfac_tpu.solvers.block_sgd import BlockSGDSolver
         solver = BlockSGDSolver(model, params, data.train_mat, inval_u,
                                 inval_i,
@@ -712,7 +717,7 @@ def train_model(data, params: Params, algo: str = "mf",
     elif m == "densesgd":
         # dense-cell masked-residual engine (ops/dense_block_kernel.py):
         # the blocksgd update at batch = cell, as 3 dense matmuls per
-        # cell with no one-hots — gated on the dense-tile HBM budget
+        # cell with no one-hots — gated on the dense-tile byte budget
         # (the solver raises when the padded matrix exceeds it)
         if mesh is not None:
             pass   # DenseBlockDSGDSolver constructed above
@@ -732,6 +737,7 @@ def train_model(data, params: Params, algo: str = "mf",
                       else "blocksgd")
                 log_fn(f"densesgd unavailable ({e}); falling back "
                        f"to {fb}")
+                m = fb
                 if fb == "sgd":
                     solver = SGDSolver(model, params, data.train_mat,
                                        inval_u, inval_i)
@@ -803,6 +809,7 @@ def train_model(data, params: Params, algo: str = "mf",
         from matfac_tpu.parallel.mesh import shard_state
         ax = mesh.axis_names[0]
         state = shard_state(state, mesh, u_axis=ax, i_axis=ax)
+    staging_s = time.perf_counter() - t_stage
     loop = TrainLoop(model, solver, ev, params, prefix=prefix,
                      invalid_users=inval_u, invalid_items=inval_i,
                      log_fn=log_fn)
@@ -811,6 +818,7 @@ def train_model(data, params: Params, algo: str = "mf",
         loop._objective = lambda st: ev.objective_sing(
             model.eval_view(st), st, sing_vals)
     report = loop.run(state, resume=resume)
+    report.method, report.staging_seconds = m, staging_s
     return report, model, ev, (inval_u, inval_i)
 
 
@@ -923,21 +931,25 @@ def _train_ranking(data, params, algo, mf_method, log_fn,
     mode = ("posneg" if mf_method.lower() in ("hogposneg", "posneg")
             else "stream")
     engine = getattr(params, "bpr_engine", "stream")
+    t_stage = time.perf_counter()
     if engine == "dense" and mode == "stream":
         from matfac_tpu.solvers.bpr_dense import DenseBPRSolver
         try:
             solver = DenseBPRSolver(model, params, data.train_mat,
                                     inval_u, inval_i)
-        except ValueError as e:   # rank-masked model / HBM budget
+        except ValueError as e:   # rank-masked model / byte budget
             log_fn(f"bpr_engine=dense unavailable ({e}); "
                    "falling back to the stream engine")
+            engine = "stream"
             solver = BPRSolver(model, params, data.train_mat, inval_u,
                                inval_i, n_tries=params.n_negatives,
                                mode=mode, sampler=params.bpr_sampler)
     else:
+        engine = "stream"
         solver = BPRSolver(model, params, data.train_mat, inval_u,
                            inval_i, n_tries=params.n_negatives,
                            mode=mode, sampler=params.bpr_sampler)
+    staging_s = time.perf_counter() - t_stage
     scorer = CatalogScorer(data.train_mat, inval_u, inval_i,
                            data.n_users, data.n_items,
                            user_block=min(params.eval_user_block,
@@ -957,6 +969,7 @@ def _train_ranking(data, params, algo, mf_method, log_fn,
                        prefix=prefix, invalid_users=inval_u,
                        invalid_items=inval_i)
     report = loop.run(state, resume=resume)
+    report.method, report.staging_seconds = f"bpr_{engine}", staging_s
     return report, model, scorer, (inval_u, inval_i)
 
 

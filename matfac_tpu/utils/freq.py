@@ -1,6 +1,6 @@
 """Frequency / validity / rank-map helpers.
 
-TPU-native analog of the reference utility layer
+JAX analog of the reference utility layer
 (/root/reference/util.cpp): row/col frequencies (getRowColFreq,
 util.cpp:555), invalid-entity detection (getInvalidUsersItems,
 util.cpp:511-544), head-item extraction (getHeadItems, util.cpp:4-34),

@@ -1,9 +1,9 @@
 // Native host-side helpers for matfac_tpu.
 //
-// TPU-native replacement for the reference's C data layer (GKlib's
+// Native replacement for the reference's C data layer (GKlib's
 // gk_csr_Read text parser, /root/reference — used at datastruct.cpp:16)
 // plus the OpenMP item-similarity graph builder (writeItemJaccSimMatPar,
-// io.cpp:1027). The TPU compute path is JAX/XLA; this library covers the
+// io.cpp:1027). The device compute path is JAX/XLA; this library covers the
 // host-side hot paths: parsing multi-GB rating files and building
 // similarity graphs, both of which are far from Python speeds.
 //

@@ -1,8 +1,8 @@
-"""CCD++ vs ALS quality parity at ML-10M shape (VERDICT r1 #1).
+"""CCD++ vs ALS quality parity at ML-10M shape.
 
 CPU run (chunked sweeps are platform-agnostic); RMSE parity on the
 100k x 20k / ~10M-nnz synthetic split is the quality half of the
-CCD++-at-scale deliverable (the rate half is scripts/tpu_ccdpp.py).
+CCD++-at-scale deliverable (the rate half is a device measurement).
 
 Usage: PYTHONPATH=. python scripts/ccdpp_scale_parity.py
 """

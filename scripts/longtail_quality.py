@@ -16,7 +16,7 @@ preferences that flat lambda over-shrinks). Model SEMANTICS are pinned
 separately by unit tests against the reference formulas
 (tests/test_train.py, tests/test_solvers.py).
 
-Round-4 update (VERDICT r3 #5): `--lowrank-tail` switches to
+Round-4 update: `--lowrank-tail` switches to
 data.synthetic.tail_lowrank_data — tail items' ground-truth factors
 live in one shared rank-3 subspace of the rank-16 model (the WWW'19
 premise: rarely-rated entities cannot support, and here genuinely do
@@ -54,7 +54,7 @@ def main():
     ap.add_argument("--shape", choices=["small", "ml10m"],
                     default="small",
                     help="ml10m: 70k x 10k / ~10M ratings at-scale "
-                         "table (VERDICT r4 #4); implies --method "
+                         "table; implies --method "
                          "densesgd-capable auto dispatch, obj_iter=5 "
                          "and a trimmed tuning grid")
     ap.add_argument("--method", default="sgd",

@@ -1,4 +1,4 @@
-"""Fill the BASELINE.md measurement-plan parity rows (VERDICT r2 #8).
+"""Fill the BASELINE.md measurement-plan parity rows.
 
 The image has no MovieLens files, so each row runs on a
 *shape- and rating-distribution-matched* synthetic: power-law item
@@ -11,8 +11,8 @@ popularity + 1-5 star quantile quantization (data.synthetic
   * ML-20M shape  (138k x 27k, ~20M),        rank-128 TMF+Poisson -> RMSE
     (+ frequency-quartile RMSEs — the WWW'19 long-tail protocol)
 
-Run ON-CHIP: nohup python scripts/ml_parity_rows.py > /tmp/parity.log 2>&1 &
-(ONE TPU process at a time; poll the log.)
+Run on the GPU: PYTHONPATH=. python scripts/ml_parity_rows.py
+(one JAX process per card).
 """
 
 import time
@@ -87,7 +87,7 @@ def bpr_row(n_users=69878, n_items=10677, per_user=140, k=64,
         f"test_HR@10={hr:.4f} test_ARHR={arhr:.4f} "
         f"test_NDCG@10={ndcg} wall={time.time()-t0:.0f}s")
 
-    # non-saturated protocol (VERDICT r3 #8): the held-out item vs 999
+    # non-saturated protocol: the held-out item vs 999
     # POPULARITY-sampled negatives, with the popularity scorer itself
     # as the margin base — full-catalog HR ~1.0 on this data says only
     # that the pipeline runs
@@ -137,7 +137,7 @@ def main():
     if "bpr" in rows:
         bpr_row()
     # harder preference noise (temp=1.0): the NON-saturated ranking row
-    # (VERDICT r3 #8 — HR@10 < 0.99 so quality differences are visible)
+    # (HR@10 < 0.99 so quality differences are visible)
     if "bprhard" in rows:
         bpr_row(temp=1.0)
     log("PARITY_ROWS_DONE")

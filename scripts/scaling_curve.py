@@ -3,12 +3,12 @@
 the one-hot BlockDSGD, with parallel efficiency and staged-stream
 balance columns.
 
-CPU numbers are NOT TPU throughput — the point is the SHAPE: they
+CPU numbers are NOT device throughput — the point is the SHAPE: they
 expose schedule pathologies (ppermute serialization, stream imbalance,
 round overhead growing with N) that are invariant to the backend.
 Results are recorded in PERF.md "Virtual-mesh scaling curve".
 
---phase-split (VERDICT r3 #7) additionally times each solver's epoch
+--phase-split additionally times each solver's epoch
 with the ppermute removed ("compute") and with ONLY the ppermute
 ("permute") via _build_epoch(mode=...), attributing the BlockDSGD
 scaling sag to compute vs collectives instead of assuming it.

@@ -1,4 +1,4 @@
-"""SGD quality parity in the reference regime (VERDICT round-1 #3).
+"""SGD quality parity in the reference regime.
 
 The reference's sequential SGD runs with maxiter 1000+ under the
 termination machine (model.cpp:1471-1540: lr halving at 100 stagnant

@@ -1,5 +1,5 @@
 """Worker process for the 2-process jax.distributed DENSE Block-DSGD
-test (VERDICT r4 #5).
+test.
 
 Each process creates 4 virtual CPU devices (8-device global mesh),
 loads ONLY its host-local rating rows and builds DenseBlockDSGDSolver

@@ -1,4 +1,4 @@
-"""analyzeModels named surface (VERDICT r3 #6): averageModels,
+"""analyzeModels named surface: averageModels,
 compareModels, meanAndVarSameGround{All,Samp}Users against brute-force
 numpy oracles over the dense cell grid (the reference loops the cells
 scalar-wise; analyzeModels.cpp:338/:489/:1258/:1366)."""

@@ -1,4 +1,4 @@
-"""BlockSGDSolver / one-hot cell kernel tests (interpret mode on CPU)."""
+"""BlockSGDSolver / one-hot cell engine tests."""
 
 import numpy as np
 import pytest
@@ -23,7 +23,7 @@ def _mk(collision_norm, seed=5):
     model = ModelMF(params, 30, 20)
     sol = BlockSGDSolver(model, params, mat, iu, ii, batch_size=8,
                          bu=8, bi=8, collision_norm=collision_norm,
-                         mm_bf16=False, interpret=True)
+                         mm_bf16=False)
     return mat, params, model, sol, iu, ii
 
 
@@ -222,8 +222,7 @@ def test_block_sgd_converges():
     iu, ii = freq.invalid_users_items(data.train_mat, 60, 40)
     model = ModelMF(params, 60, 40)
     sol = BlockSGDSolver(model, params, data.train_mat, iu, ii,
-                         batch_size=16, bu=16, bi=16, mm_bf16=False,
-                         interpret=True)
+                         batch_size=16, bu=16, bi=16, mm_bf16=False)
     ev = Evaluator(data, iu, ii, params)
     st = init_state(params, 60, 40)
     for e in range(60):
@@ -232,29 +231,10 @@ def test_block_sgd_converges():
     assert val < 0.35, val
 
 
-def test_block_sgd_engines_agree():
-    """engine="xla" and engine="pallas" (interpret) share _batch_update
-    and the staged schedule — outputs must agree to f32 roundoff."""
-    mat, params, model, sol_x, iu, ii = _mk(False)
-    _, _, _, sol_p, _, _ = _mk(False)
-    sol_p.engine = "pallas"
-    state = init_state(params, 30, 20, seed=3)
-    out_x = sol_x.epoch(state, params.learn_rate, None)
-    out_p = sol_p.epoch(state, params.learn_rate, None)
-    np.testing.assert_allclose(np.asarray(out_x.u_fac),
-                               np.asarray(out_p.u_fac),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(out_x.i_fac),
-                               np.asarray(out_p.i_fac),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_block_sgd_vmem_guard():
-    params = Params(fac_dim=128)
-    model = ModelMF(params, 1000, 300_000)
-    with pytest.raises(ValueError):
-        BlockSGDSolver(model, params, None, np.zeros(1000, bool),
-                       np.zeros(300_000, bool), engine="pallas")
+def test_block_sgd_rejects_removed_pallas_engine():
+    mat, params, model, _, iu, ii = _mk(False)
+    with pytest.raises(ValueError, match="engine"):
+        BlockSGDSolver(model, params, mat, iu, ii, engine="pallas")
 
 
 def test_block_sgd_via_train_model():

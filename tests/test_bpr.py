@@ -260,7 +260,7 @@ def _run_hr_loop(data, params, prefix, resume):
 
 
 def test_hr_loop_resume_bit_exact(lo_data, tmp_path):
-    """TrainLoopHR checkpoint/resume (VERDICT r2 #3): a BPR run
+    """TrainLoopHR checkpoint/resume: a BPR run
     interrupted at epoch 5 and resumed reaches the SAME final state and
     best HR as an uninterrupted run — the raw PRNG key chain, decayed
     lr, best snapshot and solver loss/inversions are all persisted

@@ -41,6 +41,21 @@ def test_shard_state_placement():
                                np.asarray(state.u_fac))
 
 
+def test_shard_state_replicates_uneven_tables():
+    """A height that does not divide the mesh axis (ML-20M's 138,493
+    users over 4 devices) replicates that table instead of failing."""
+    params = Params(fac_dim=4)
+    mesh = make_mesh((4,), ("u",), devices=jax.devices()[:4])
+    state = init_state(params, 66, 32)
+    sharded = shard_state(state, mesh, "u", "u")
+    assert sharded.u_fac.sharding.spec == P(None, None)
+    assert sharded.u_bias.sharding.spec == P(None)
+    assert sharded.i_fac.sharding.spec == P("u", None)
+    assert len(sharded.u_fac.sharding.device_set) == 4
+    np.testing.assert_array_equal(np.asarray(sharded.u_fac),
+                                  np.asarray(state.u_fac))
+
+
 @pytest.fixture(scope="module")
 def setup():
     data, _, _ = synthetic_data(n_users=160, n_items=96, k=4,
@@ -247,7 +262,7 @@ def test_dsgd_item_balancing():
 
 
 def test_dsgd_two_process_distributed(tmp_path):
-    """Real multi-host path (VERDICT r1 #4): two jax.distributed
+    """Real multi-host path: two jax.distributed
     processes, each staging only its host-local rating rows and its own
     4 of 8 shard blocks, produce the SAME trained factors as one process
     staging everything on an 8-device mesh."""
@@ -442,7 +457,7 @@ def test_block_dsgd_two_process_distributed(tmp_path):
 
 def test_train_model_mesh_auto_and_bias_guard(setup):
     """auto under a mesh resolves to sharded ALS for plain MF (VERDICT
-    r2 #6); bias models are rejected with a clear error (ADVICE r2)."""
+    r2 #6); bias models are rejected with a clear error."""
     from matfac_tpu.train.loop import train_model
 
     data, _, _, _, iu, ii = setup

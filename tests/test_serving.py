@@ -19,7 +19,7 @@ def test_recommender_excludes_rated_and_ranks():
     state = init_state(params, data.n_users, data.n_items)
     rec = Recommender(model.eval_view(state), data.train_mat,
                       data.n_users, data.n_items, user_block=16,
-                      item_block=16, use_pallas=False)
+                      item_block=16)
     users = [0, 7, 33]
     items, scores = rec.recommend(users, n=5)
     assert items.shape == (3, 5)
@@ -32,19 +32,14 @@ def test_recommender_excludes_rated_and_ranks():
         rec.recommend([999])
 
 
-def test_recommender_pallas_backend_matches():
-    data = leave_one_out_data(n_users=32, n_items=30, per_user=8, seed=5)
+def test_recommender_has_no_pallas_option():
+    data = leave_one_out_data(n_users=20, n_items=16, per_user=4, seed=5)
     params = Params(fac_dim=4, seed=2)
     model = ModelMF(params, data.n_users, data.n_items)
     view = model.eval_view(init_state(params, data.n_users, data.n_items))
-    xla = Recommender(view, data.train_mat, data.n_users, data.n_items,
-                      user_block=16, item_block=16, use_pallas=False)
-    pls = Recommender(view, data.train_mat, data.n_users, data.n_items,
-                      user_block=16, item_block=16, use_pallas=True)
-    users = [1, 13, 28]
-    ix, sx = xla.recommend(users, n=4)
-    ip, sp = pls.recommend(users, n=4)
-    np.testing.assert_allclose(sx, sp, rtol=1e-5)
+    with pytest.raises(TypeError):
+        Recommender(view, data.train_mat, data.n_users, data.n_items,
+                    use_pallas=True)
 
 
 def test_recommender_from_checkpoint(tmp_path):
@@ -59,7 +54,7 @@ def test_recommender_from_checkpoint(tmp_path):
     train_model(data, p, mf_method="als", log_fn=lambda s: None,
                 prefix=prefix)
     rec = Recommender.from_checkpoint(prefix, p, data, user_block=16,
-                                      item_block=16, use_pallas=False)
+                                      item_block=16)
     items, scores = rec.recommend([0, 5], n=3)
     assert np.isfinite(scores).all()
     with pytest.raises(FileNotFoundError):
